@@ -42,7 +42,7 @@ def main():
         p = jax.tree.map(lambda x: x, base)
         m = dict(p["meshes"][0])
         shift = jnp.concatenate([offset, jnp.zeros((1,), jnp.float32)])
-        m["to_world"] = xf.translate(shift) @ m["to_world"]
+        m["to_world"] = xf.matmul(xf.translate(shift), m["to_world"])
         p["meshes"] = list(p["meshes"])
         p["meshes"][0] = m
         return p

@@ -3,8 +3,8 @@
 BASELINE config 5 at laptop scale: N views of a displaced sphere, one
 view per device (``make_multiview_train_step``), mean-over-views L2,
 parameter gradients psum'd over the mesh, masked Adam on the mesh
-transform. On CPU this runs on 4 emulated devices; on a TPU slice the
-same code shards views over real chips.
+transform. On CPU this runs on 4 emulated devices; on a machine with
+several GPUs the same code shards views over the cards.
 
 Usage: python examples/multiview_inverse.py [iters]
 """

@@ -1,8 +1,8 @@
 // psdr_tpu native runtime: host-side builders and loaders.
 //
-// TPU-native equivalents of the reference's native components:
+// Host-side equivalents of the reference's native components:
 //  * obj_*       — OBJ mesh parsing (replaces vendored tinyobjloader,
-//                  /root/reference is the behavioral reference: mesh.cpp:62-141)
+//                  the reference's mesh.cpp:62-141 is the behavioral spec)
 //  * build_edges — 2-manifold edge-adjacency table (mesh.cpp:143-203)
 //  * morton_topology — acceleration-structure build: Morton sort + complete
 //                  implicit tree topology (the OptiX GAS-build analog,

@@ -2,17 +2,18 @@
 closest-hit reduction ("flash-intersect" pattern — tiles of rays x tiles of
 triangles, carry (t, id, uv) like flash-attention carries the softmax state).
 
-This is the v0 backend that runs anywhere (CPU tests, TPU). It replaces the
+This is the plain reference backend that runs anywhere. It replaces the
 reference's OptiX launch (src/scene/scene_optix.cpp:80-126 +
 cuda/psdr_cuda.cu): same contract — detached closest-hit query returning
 (tri_id, barycentrics); gradients flow through the *recompute* in
 scene.ray_intersect, never through traversal.
 
-TPU layout note: all Moller-Trumbore intermediates are kept as 2D
+Layout note: all Moller-Trumbore intermediates are kept as 2D
 (ray_tile, tri_tile) f32 arrays by doing the vector algebra in explicit
 x/y/z components — rays broadcast down columns, triangles across rows. A
-(R, T, 3) layout would blow past VMEM and block XLA elementwise fusion; the
-component form keeps every temporary a (R, T) VPU tile.
+(R, T, 3) layout would triple the temporaries and get in the way of XLA's
+elementwise fusion; the component form keeps every temporary one (R, T)
+tile.
 """
 from __future__ import annotations
 

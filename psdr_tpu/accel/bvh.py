@@ -1,4 +1,4 @@
-"""TPU-native BVH: complete implicit binary tree over Morton-sorted
+"""Implicit BVH: complete binary tree over Morton-sorted
 triangle chunks.
 
 Replaces the reference's OptiX GAS + RT-core traversal
@@ -16,7 +16,7 @@ a design shaped for XLA instead of RT cores:
   ``2i, 2i+1``; leaves live at ``[P, 2P)``. Stackless preorder traversal
   needs only ``next-if-hit = 2i`` and a static ``skip[i]`` table
   (the next preorder node after subtree ``i``), so the per-ray state is one
-  int32 — no traversal stacks in registers or VMEM.
+  int32 — no traversal stacks.
 * **Lockstep wavefront traversal.** All rays in a block step through their
   own node pointers simultaneously (gather node AABB -> slab test ->
   masked leaf Moller-Trumbore -> advance), with closest-hit distance used
@@ -52,8 +52,8 @@ class BVH(NamedTuple):
 
     Layouts are packed for one-row-per-step gathers: the traversal loop
     issues exactly two f32 gathers (node row, leaf-triangle row) and one
-    int32 gather (skip link) per iteration — many small per-component
-    gathers inside a while_loop are XLA-TPU compile/runtime poison.
+    int32 gather (skip link) per iteration instead of many small
+    per-component gathers inside the while_loop.
     """
     nodes: jax.Array        # (2P, 6) heap order: [lo.xyz, hi.xyz]; row 0 unused
     node_mask: jax.Array    # (2P,) bool: subtree contains any real triangle.
@@ -186,23 +186,24 @@ def ray_intersect_culled(bvh: BVH, ray_o: jax.Array, ray_d: jax.Array,
                          tmax: jax.Array | None = None,
                          ray_block: int = 2048,
                          tri_block: int = 512) -> HitRecord:
-    """Block-culled dense intersection — the TPU-shaped fast path.
+    """Block-culled dense intersection in plain XLA (the ``"culled"``
+    backend; ``accel/pallas_kernel.py`` is the GPU kernel of the same cut).
 
-    Instead of a per-ray pointer walk (gather-latency-bound on TPU), cut the
+    Instead of a per-ray pointer walk, cut the
     implicit tree at the level with B = P*L/T nodes ("tri-blocks" of T
     Morton-adjacent triangles):
 
-    1. cull: dense (R, B) slab tests — pure VPU elementwise, no gathers;
+    1. cull: dense (R, B) slab tests — pure elementwise, no gathers;
     2. compact: the list of blocks hit by ANY ray of the R-block (host-free,
        `cumsum` + scatter);
     3. sweep: a while_loop over just the occupied blocks; each iteration
-       dynamic-slices one (9T,) packed triangle row (contiguous DMA, not a
+       dynamic-slices one (9T,) packed triangle row (contiguous, not a
        gather) and runs a dense (R, T) component-form Moller-Trumbore tile
        with running closest-hit reduction.
 
     Work scales with (occupied blocks) x R x T instead of R x F; every
-    compute op is a dense 2D VPU tile, and loop trip counts are tens, not
-    thousands.
+    compute op is a dense 2D tile, and loop trip counts are tens, not
+    thousands. The ray blocks run one after another under ``lax.map``.
     """
     from .bruteforce import moller_trumbore_tile
 

@@ -74,8 +74,7 @@ def eval_bitmap(bm: Bitmap, uv: jax.Array, flip_v: bool = False) -> jax.Array:
 
     if h * w <= (1 << 20):
         # one packed quad-row gather instead of 4 separate texel gathers
-        # (wavefront gathers cost ~4ms/2M lanes each on TPU; the
-        # shifted-view concat is one O(HW) copy that XLA CSEs across eval
+        # (the shifted-view concat is one O(HW) copy that XLA CSEs across eval
         # sites). The roll wrap rows are never read: x0 <= w-2, y0 <= h-2.
         flat = bm.data.reshape(h * w, c)
         quad = jnp.concatenate([flat,

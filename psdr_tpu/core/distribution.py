@@ -43,8 +43,8 @@ def discrete_sample_reuse(d: Discrete, samples: jax.Array) -> Tuple[jax.Array, j
 
     Small tables (emitter selection, small area-light face tables) use a
     broadcast compare + masked reductions instead of searchsorted + gathers:
-    wavefront-sized gathers cost ~4ms per 2M lanes each on TPU while the
-    L-wide compare row is VPU-trivial. Both branches compute identical
+    the L-wide compare row fuses with its consumers where each
+    wavefront-sized gather is a pass of its own. Both branches compute identical
     values (the reductions select actual table entries, no re-derivation).
     """
     s = samples * d.total
@@ -63,10 +63,10 @@ def discrete_sample_reuse(d: Discrete, samples: jax.Array) -> Tuple[jax.Array, j
             pmf_i = jnp.where(idx == i, d.pmf[i], pmf_i)
     elif d.size <= (1 << 25):
         # blocked broadcast search (2 or 3 levels of 128): count block-end
-        # cmf entries below s at the top level (VPU broadcast, no gathers),
+        # cmf entries below s at the top level (broadcast, no gathers),
         # then one packed row gather + in-row count per lower level.
-        # searchsorted lowers to log2(n) dependent wavefront gathers (~4ms
-        # each on v5e); this is 1-2 row gathers + one pmf gather + compare
+        # searchsorted lowers to log2(n) dependent wavefront gathers; this
+        # is 1-2 row gathers + one pmf gather + compare
         # rows. All selected values are actual table entries; prev entries
         # are selected by INDEX (see small-branch comment on cumsum
         # monotonicity).
@@ -111,8 +111,7 @@ def discrete_sample_reuse(d: Discrete, samples: jax.Array) -> Tuple[jax.Array, j
         if _os.environ.get("PSDR_TPU_CMF_PACKED", "1") == "1":
             # pack the pmf row next to the cmf row: ONE (N, 2C) row gather
             # replaces (N, C) + a separate (N,) pmf gather into the big
-            # table — row gathers are per-row-op-bound on v5e, so folding
-            # the second gather away wins (A/B'd on-chip, round 4). The
+            # table (not yet A/B'd on the GPU). The
             # in-row pmf select is exact: padded entries are 0 but s <
             # total keeps idx inside the real range (cmf pad is +inf).
             pmf_rows = jnp.pad(d.pmf, (0, pad)).reshape(n_blocks, C)
@@ -149,9 +148,8 @@ class AliasTable(NamedTuple):
     """O(1) alias-method sampler for big tables (Walker/Vose semantics).
 
     One (N, 4) f32 row per cell: [q, pmf_self, pmf_alias, alias_index
-    bitcast to f32] — sampling is ONE narrow row gather + VPU selects,
-    replacing the blocked cmf binary search (1-2 wide row gathers) that
-    dominated envmap NEE sampling (BASELINE.md round 4: 53.7 ms/2M).
+    bitcast to f32] — sampling is ONE narrow row gather + selects,
+    replacing the blocked cmf binary search (1-2 wide row gathers).
 
     ``pmf`` is the EFFECTIVE per-cell probability mass the table actually
     samples — recomputed from (q, alias) after construction — so the
@@ -263,8 +261,8 @@ class Hier2D(NamedTuple):
     Monotone-per-axis alternative to both the flattened 1D cmf search
     (1-2 wide (N, 256) row gathers + broadcast compare rows) and the
     alias table (O(1) but a non-monotone u->cell map that destroys
-    (0,2)-sequence stratification — measured 1.73x NEE variance,
-    BASELINE.md round 5). The grid is padded to per-axis powers of two
+    (0,2)-sequence stratification — measured 1.73x NEE variance on the
+    envmap scenes). The grid is padded to per-axis powers of two
     and factored into ceil(log8) descent steps of up to 8x8 children;
     each step stores, per node, its children's subtree masses as one
     (ax, ay) row, so descending a step is ONE narrow (N, <=64) row

@@ -1,12 +1,11 @@
 """Wavefront row gather with a configurable transpose (backward).
 
 The transpose of ``table[idx]`` (idx: N wavefront lanes, table: F rows) is
-a scatter-add of N cotangent rows into F table rows. XLA lowers that to a
-TPU scatter, which serializes per duplicate index — and the hit-recompute
-face-table gather funnels every interior-lane cotangent through it
-(CLAUDE.md roadmap 2). The sorted modes below reorder the cotangent rows
-by destination first, turning the reduction into a sorted segment sum or a
-cumsum difference, both of which vectorize on the VPU.
+a scatter-add of N cotangent rows into F table rows (atomic adds on a
+GPU, which contend on duplicate indices) — and the hit-recompute face-table
+gather funnels every interior-lane cotangent through it. The sorted modes
+below reorder the cotangent rows by destination first, turning the
+reduction into a sorted segment sum or a cumsum difference.
 
 Built on ``jax.custom_derivatives.linear_call`` (the gather is linear in
 ``table``), so BOTH autodiff modes work: the jvp of a linear function is
@@ -16,8 +15,8 @@ would break the repo's jvp-based AD-vs-FD harness (testing/harness.py
 ``run_ad``).
 
 Parity note: the reference accumulates these gradients with CUDA atomics
-(enoki ``scatter_add``, e.g. /root/reference/src/core/bitmap.cpp grads);
-on TPU the equivalent question is which XLA lowering to force.
+(enoki ``scatter_add``, e.g. src/core/bitmap.cpp grads); here the
+question is which XLA lowering to force.
 
 Modes
 -----

@@ -35,8 +35,7 @@ def squared_norm(a: jax.Array) -> jax.Array:
 def normalize(a: jax.Array) -> jax.Array:
     # backward-safe at a == 0 EXACTLY: a / max(sqrt(S), eps) still NaNs
     # under reverse-mode there — sqrt's tangent is inf at S=0 and max's
-    # zero cotangent gives 0 * inf (CLAUDE.md rule 8; hit on TPU by the
-    # flagship recovery when the deforming mesh folds a triangle to zero
+    # zero cotangent gives 0 * inf (hit by the flagship recovery when the deforming mesh folds a triangle to zero
     # area: cross(e1, e2) == 0 exactly). rsqrt(max(S, eps)) has a finite
     # derivative everywhere, so masked/zero cotangents stay zero.
     return a * safe_rsqrt(squared_norm(a))[..., None]

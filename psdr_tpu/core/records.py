@@ -115,14 +115,12 @@ class RenderOptions:
     primary_edge_vis_check: bool = False
     # max lanes materialized at once; larger wavefronts run as an in-jit
     # lax.scan over passes (the reference's npass, fused into one program).
-    # Bounds XLA HLO-temp memory: some (N,3) temporaries get lane-padded
-    # 42x by TPU layout assignment.
+    # Bounds XLA HLO-temp memory. Not yet re-chosen for the GPU.
     pass_lanes: int = 1 << 21
     # checkpoint each pass chunk: the backward recomputes the chunk forward
-    # instead of spilling its residual intermediates to HBM. Measured on
-    # v5e (scripts/bench_remat_ab.py): recompute LOSES 64% at 4.2M lanes —
-    # the chip has HBM bandwidth to spare for residual spills, so "auto"
-    # remats only wavefronts too big for residuals to fit (> remat_lanes).
+    # instead of spilling its residual intermediates to device memory.
+    # "auto" remats only wavefronts too big for residuals to fit
+    # (> remat_lanes); the threshold is not yet re-chosen for the GPU.
     # True/False force it.
     remat_passes: bool | str = "auto"
     # lane count above which "auto" starts checkpointing pass chunks
@@ -148,17 +146,14 @@ class RenderOptions:
     # camera-hit prior: a detached spp=1 pixel-center pre-trace records each
     # pixel's hit triangle; every subpixel camera ray then MTs its pixel's
     # candidate and, when it hits at t0, runs the closest-hit query with
-    # tmax = t0(1+eps) — the intersection kernel's front-to-back cull skips
-    # every triangle block beyond the hit. Exact: a candidate hit is a real
-    # scene hit, so t_closest <= t0 and the bounded query returns the same
-    # closest hit (an ulp-rescue falls back to the candidate itself).
-    # MEASURED A/B LOSER on v5e, default OFF: bench.py 35.7M vs 36.99M
-    # forward — the kernel's front-to-back block streaming already
-    # self-discovers a tight per-lane t_best after the first near blocks,
-    # so the bound saves no MT tiles and the pre-trace + per-lane candidate
-    # MT are pure overhead (~3.5%). Kept as an option: it is exact, and can
-    # pay on very-high-depth-complexity scenes where the first hit hides
-    # most of the triangle stream. "auto" = on when spp >= 4.
+    # tmax = t0(1+eps) — the intersection cull skips every triangle block
+    # beyond the hit. Exact: a candidate hit is a real scene hit, so
+    # t_closest <= t0 and the bounded query returns the same closest hit
+    # (an ulp-rescue falls back to the candidate itself). Default OFF: it
+    # lost its A/B on the accelerator this was first tuned on, and is not
+    # yet measured on the GPU. It can pay on very-high-depth-complexity
+    # scenes where the first hit hides most of the triangles. "auto" = on
+    # when spp >= 4.
     camera_hit_prior: bool | str = False
 
     def resolve_camera_prior(self, spp: int) -> bool:

@@ -2,7 +2,7 @@
 
 The reference (psdr-cuda src/core/sampler.cpp) uses a vectorized PCG32 with
 per-lane TEA-hashed seeds and three independent streams owned by the scene
-(interior / primary-edge / secondary-edge). On TPU we use JAX's counter-based
+(interior / primary-edge / secondary-edge). Here we use JAX's counter-based
 PRNG instead: a stream is a base key, and every draw folds a trace-time
 static counter into it, so the whole render remains a pure function of the
 key with no mutable state threading.

@@ -144,13 +144,12 @@ def configure_envmap(params: dict, lower: jax.Array, upper: jax.Array,
     gw_f, gh_f = (w - 1) * 2, (h - 1) * 2
     # The reference super-samples the importance grid to 2x the bitmap
     # (envmap.cpp:14) — 2M cells for a 1k envmap, which makes the cmf
-    # search + pdf gathers the dominant envmap-NEE cost on TPU. The grid
+    # search + pdf gathers the dominant envmap-NEE cost. The grid
     # is an importance choice, not a correctness surface: the pdf reads
     # the SAME distribution, so any resolution is unbiased (image means
     # agree to 3e-4 on bunny_env) PROVIDED every nonzero-radiance direction
     # keeps nonzero mass. Default div=4 for large grids: +3.8% NEE variance
-    # (CPU-measured, seeds A/B) for +32% e2e forward on bunny_env
-    # (15.1 -> 19.9 Mrays/s, BASELINE.md round 4).
+    # (CPU-measured, seeds A/B); its speed on the GPU is not measured.
     # PSDR_TPU_ENV_RESO_DIV=1 restores exact reference-parity resolution;
     # small grids (<= 2^18 cells, incl. every test envmap) never divide.
     import os as _os

@@ -1,4 +1,5 @@
-"""Multi-chip scaling: data-parallel Monte-Carlo rendering over a TPU mesh.
+"""Multi-device scaling: data-parallel Monte-Carlo rendering over a device
+mesh.
 
 The reference (psdr-cuda) is strictly single-GPU — its only parallelism is
 the wavefront array (SURVEY.md §2.3). This module is new capability: shard
@@ -6,10 +7,10 @@ the Monte-Carlo sample budget over a `jax.sharding.Mesh` with `shard_map`,
 replicate the (small) flattened scene, and `pmean` the per-device partial
 images. Gradients of replicated parameters are reduced automatically by the
 `shard_map` transpose (broadcast-in → psum-of-cotangents-out), so a jitted
-`value_and_grad` training step needs no manual collectives; the all-reduce
-rides ICI.
+`value_and_grad` training step needs no manual collectives; XLA hands the
+all-reduce to the interconnect (NVLink between the GPUs of one host).
 
-Design notes (tpu-first):
+Design notes:
 * Monte-Carlo estimators are linear in sample count, so DP over samples is
   exact: each device renders the full image with 1/D of the per-pixel sample
   budget under an independent fold of the RNG key, and the mean over the
@@ -156,11 +157,11 @@ def make_train_step(integrator, scene, mesh: Mesh, target_image,
     optimizer update) runs inside shard_map. Gradient leaves are reduced
     in explicit descending-size groups with an optimization barrier between
     group k's reduction and group k+1's use, so the large reductions
-    (vertex positions, texture bitmaps) are issued first and — on hardware
-    with async collectives (TPU ICI/DCN) — overlap the remaining reduction
-    + optimizer math instead of serializing after it (BASELINE v5e-16
-    scaling target; SURVEY §5.8). Numerically identical to the default
-    path (tests/test_parallel.py pins it).
+    (vertex positions, texture bitmaps) are issued first and — where the
+    collectives run asynchronously — overlap the remaining reduction +
+    optimizer math instead of serializing after it (SURVEY §5.8).
+    Numerically identical to the default path (tests/test_parallel.py pins
+    it).
     """
     import optax
     if optimizer is None:
@@ -235,9 +236,11 @@ def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
     """Multi-host entry point: initialize jax.distributed so
-    ``device_mesh()`` spans every chip of a multi-host slice. Sample DP and
-    the psum'd gradients then ride ICI within hosts and DCN across them
-    (the shard_map code path is topology-agnostic)."""
+    ``device_mesh()`` spans every device of every host. Sample DP and the
+    psum'd gradients then ride the intra-host interconnect within hosts and
+    the network across them (the shard_map code path is topology-agnostic).
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id: nothing discovers a cluster by itself."""
     import jax
     kwargs = {}
     if coordinator_address is not None:

@@ -74,11 +74,11 @@ class FlatScene(NamedTuple):
     lower: jax.Array             # (3,) scene AABB
     upper: jax.Array
     accel: Optional[BVH] = None  # refit BVH; None -> brute force
-    accel_kind: str = "culled"   # "culled" (block-cull dense) | "bvh" (walk)
+    # "culled" (XLA block cull) | "pallas" (GPU kernel) | "bvh_walk"
+    accel_kind: str = "culled"
     # (F, 32) packed per-face row table: every per-face field the recompute
     # gathers, concatenated so the hit recompute is ONE row gather instead
-    # of 14 separate ones (measured 11.7x cheaper on v5e at 2M lanes,
-    # scripts/bench_gather.py). Columns: p0 e1 e2 n0 n1 n2 fn | area |
+    # of 14 separate ones. Columns: p0 e1 e2 n0 n1 n2 fn | area |
     # uv0 uv1 uv2 | fmask | mesh_id bsdf_id emitter_id (ids as exact f32).
     face_table: Optional[jax.Array] = None
     # (E,) int32 global face ids of all emitter geometry (area-light faces +
@@ -88,9 +88,14 @@ class FlatScene(NamedTuple):
     # static flag set by detach_flat(): every array leaf is stop_gradient'd,
     # so ray_intersect skips the differentiable hit recompute (the kernel's
     # own t/uv are the same numbers) and narrows the face-table gather to
-    # the shading columns — measured ~40% of the camera-stage cost beyond
-    # the kernel is this recompute (scripts/bench_cam_parts.py)
+    # the shading columns
     detached: bool = False
+
+
+def auto_accel_kind() -> str:
+    """The ``"auto"`` intersection backend for the default JAX backend: the
+    Triton-route kernel on a GPU, the XLA block-culled sweep elsewhere."""
+    return "pallas" if jax.default_backend() == "gpu" else "culled"
 
 
 def detach_flat(flat: "FlatScene") -> "FlatScene":
@@ -119,11 +124,10 @@ class Scene:
         self._configured = False
         self._flat_cache = None
         # ray-intersection backend: "auto" | "brute" | "culled" | "pallas"
-        # | "bvh_walk". "auto" picks the Pallas block-culled kernel on TPU
-        # and the XLA block-culled path elsewhere. "bvh" is an alias for
-        # "culled" (the pointer-walk traversal measured 25-170x slower than
-        # block-cull on TPU; it stays available as the explicit "bvh_walk"
-        # for cross-checking, not as a production dispatch target).
+        # | "bvh_walk". "auto" is ``auto_accel_kind()``. "bvh" is an alias
+        # for "culled"; the per-ray pointer walk stays available as the
+        # explicit "bvh_walk" for cross-checking, not as a production
+        # dispatch target.
         self.accel_mode = "auto"
         self.accel_leaf_size = 4
         self.accel_min_faces = 512  # "auto" switches to BVH above this
@@ -494,9 +498,8 @@ class Scene:
             accel_kind = "culled"
         elif self.accel_mode in ("bvh_walk", "pallas", "culled"):
             accel_kind = self.accel_mode
-        else:  # auto: the Pallas kernel wins on real TPUs; culled elsewhere
-            accel_kind = ("pallas" if jax.default_backend() == "tpu"
-                          else "culled")
+        else:
+            accel_kind = auto_accel_kind()
         return FlatScene(
             accel=accel,
             accel_kind=accel_kind,
@@ -537,8 +540,8 @@ _BOUND_FACES = [
 # segmented-sort implementation: "argsort" (stable bitonic network) or
 # "counting" (one-hot running count — no compare-exchange network; the
 # 65-value key space makes a counting sort natural). Same (perm, inv)
-# either way (tests/test_render.py pins equality); flip after the
-# on-chip A/B (scripts/bench_gather.py seg-argsort vs counting-inv).
+# either way (tests/test_render.py pins equality); not yet measured
+# against each other on the GPU.
 _SORT_IMPL = os.environ.get("PSDR_TPU_SORT_IMPL", "argsort")
 
 
@@ -547,9 +550,7 @@ def _octant_sort(ray: Ray, active: jax.Array, seg: int = 1 << 15,
     """Stable within-segment reorder by quantized direction: groups lanes
     into 64 direction bins (4x4x4 per-component quantization) inside
     32k-lane segments, trading some origin (pixel-tile) coherence for much
-    tighter direction cones per ray block — measured +32% kernel throughput
-    over 8-octant/4k-segment sorting on hemisphere-spread bounce rays
-    (scripts/bench_bounce_parts.py, r2). Inactive lanes sort to the end of
+    tighter direction cones per ray block. Inactive lanes sort to the end of
     each segment, so sparse wavefronts (e.g. the emitter-first occlusion
     sweep) compact their active lanes into few ray blocks and the rest exit
     at the cull phase. Returns (permutation, inverse permutation)."""
@@ -609,8 +610,7 @@ def _closest_hit(flat: FlatScene, ray: Ray, active: jax.Array,
     if sort_rays and flat.accel is not None:
         perm, inv = _octant_sort(ray, active, want_inv=not test_only)
         if perm is not None:
-            # permute via ONE packed row gather (separate per-array gathers
-            # are ~11x more expensive on TPU — scripts/bench_gather.py)
+            # permute via ONE packed row gather, not one per array
             packed = jnp.concatenate(
                 [sg(ray.o), sg(ray.d), active.astype(jnp.float32)[:, None]]
                 + ([sg(tmax)[:, None]] if tmax is not None else []), axis=1)
@@ -623,33 +623,9 @@ def _closest_hit(flat: FlatScene, ray: Ray, active: jax.Array,
         if flat.accel_kind == "bvh_walk":
             hit = ray_intersect_bvh(flat.accel, q_o, q_d, q_act, tmax=q_tmax)
         elif flat.accel_kind == "pallas":
-            from ..accel.pallas_kernel import ray_intersect_pallas_culled2
-            # tuned on v5e: closest-hit R=2048 beats 1024/512/4096 at the
-            # production spp=64 coherence — the cull executes only ~2 MT
-            # tiles per ray block, so the per-ray-block fixed cost (cull +
-            # prefix matmul + SMEM copies) dominates and larger blocks
-            # amortize it until the widened frustum costs cull precision
-            # (bench_cam_parts round 4: R1024/ss2 56.6, R2048/ss2 54.5,
-            # R2048/ss4 51.0, R4096/ss4 52.4 ms per 2M-lane chunk incl.
-            # raygen). Sub-block refine G=4 recovers the cull precision the
-            # bigger block loses. front-to-back block streaming: +14%
-            # coherent / +15% bounce closest-hit (bench_ftb_coherent,
-            # bench_bounce_parts). Any-hit: R=1024; front-to-back for
-            # SORTED sweeps only. Evidence (round 4): the corrected
-            # interleaved A/B shows ftb neutral on the NEE shadow sweep
-            # itself (108.1 vs 109.1 ms/2M), but the e2e bunny_env child
-            # bench reads 19.9 Mrays/s with ftb vs 14.4 without (same
-            # image mean) — the win lives in the OTHER sorted any-hit
-            # site, the emitter-first bsdf-side dense fallback, whose
-            # long-tmax bounce occlusion exits early when near blocks
-            # stream first. Unsorted (coherent) any-hit keeps plain order
-            # (ftb measured a loss there, round 2).
-            hit = ray_intersect_pallas_culled2(
-                flat.accel, q_o, q_d, q_act,
-                tmax=q_tmax, any_hit=any_hit,
-                ray_block=1024 if any_hit else 2048,
-                sub_split=4,
-                front_to_back=(not any_hit) or bool(sort_rays))
+            from ..accel.pallas_kernel import ray_intersect_pallas
+            hit = ray_intersect_pallas(flat.accel, q_o, q_d, q_act,
+                                       tmax=q_tmax, any_hit=any_hit)
         else:
             hit = ray_intersect_culled(flat.accel, q_o, q_d, q_act,
                                        tmax=q_tmax)
@@ -685,9 +661,8 @@ def ray_test(flat: FlatScene, ray: Ray, dist: jax.Array,
     sweep runs at ~1% — only bounce rays that reach an emitter need the
     test) and run the kernel on a compacted 1/8-size wavefront when every
     sort segment's active count fits; an exact ``lax.cond`` falls back to
-    the full sorted sweep when it doesn't. The full-size path spends 64%
-    of its time permuting/scattering full-width arrays around a mostly-
-    dead kernel (BASELINE.md round-3 occl-machinery probe)."""
+    the full sorted sweep when it doesn't: the full-size path would
+    permute and scatter full-width arrays around a mostly-dead kernel."""
     from ..core.constants import ShadowEpsilon
     tmax = sg(dist) - ShadowEpsilon
     if sparse and flat.accel is not None and flat.accel_kind == "pallas":
@@ -730,11 +705,10 @@ def _ray_test_sparse(flat: FlatScene, ray: Ray, tmax: jax.Array,
             [sg(ray.o), sg(ray.d), active.astype(jnp.float32)[:, None],
              sg(tmax)[:, None]], axis=1)[perm_k]
         q_act = packed[:, 6] > 0.5
-        from ..accel.pallas_kernel import ray_intersect_pallas_culled2
-        hit = ray_intersect_pallas_culled2(
-            flat.accel, packed[:, 0:3], packed[:, 3:6], q_act,
-            tmax=packed[:, 7], any_hit=True, ray_block=1024, sub_split=4,
-            front_to_back=False)
+        from ..accel.pallas_kernel import ray_intersect_pallas
+        hit = ray_intersect_pallas(flat.accel, packed[:, 0:3],
+                                   packed[:, 3:6], q_act, tmax=packed[:, 7],
+                                   any_hit=True)
         return jnp.zeros((n,), bool).at[perm_k].set(hit.valid & q_act)
 
     def dense_path(_):
@@ -801,11 +775,10 @@ def ray_intersect(flat: FlatScene, ray: Ray, active: jax.Array,
         return _intersection_detached(flat, ray, hit, valid, idx, rows)
 
     if rows is not None or flat.face_table is not None:
-        # one packed row gather instead of 14 separate table gathers
-        # (11.7x cheaper on v5e at 2M lanes — scripts/bench_gather.py);
+        # one packed row gather instead of 14 separate table gathers;
         # the backward of this gather is the big (N,32)->(F,32)
         # scatter-add — gather_rows makes its reduction strategy
-        # selectable (CLAUDE.md roadmap 2)
+        # selectable (core/gather.py)
         if rows is None:
             rows = gather_rows(flat.face_table, idx)
         tri = TriangleInfo(
@@ -833,8 +806,8 @@ def ray_intersect(flat: FlatScene, ray: Ray, active: jax.Array,
         p = jnp.where(valid[..., None], p, sg(ray.o + ray.d))
         d = p - ray.o
         # sqrt(max(., eps)) instead of norm(): a grazing hit whose
-        # barycentric recompute rounds to p == o (observed on TPU, where
-        # the kernel accepts t ~ RayEpsilon hits the CPU backend rejects)
+        # barycentric recompute rounds to p == o (a kernel may accept
+        # t ~ RayEpsilon hits that another backend rejects)
         # would otherwise put sqrt's 0/0 NaN gradient on the lane — and
         # 0-cotangent * NaN poisons the whole psum into the camera matrix
         t = jnp.sqrt(jnp.maximum(squared_norm(d), 1e-16))
@@ -847,7 +820,7 @@ def ray_intersect(flat: FlatScene, ray: Ray, active: jax.Array,
         # ``hit`` (known-triangle camera trace) a vis=True lane can be
         # near-coplanar, and its unclamped t ~ 1e20 / uv ~ 1e20 would turn
         # into inf/NaN in downstream normalize()/bilinear() squares —
-        # 0-cotangent * NaN still poisons the psum (CLAUDE.md rule 8).
+        # 0-cotangent * NaN still poisons the psum'd gradient.
         # True hits have t far below 1e6 (f32 geometry is unusable beyond
         # that) and uv in [0,1], so the clamps never bind (and pass
         # gradients through) on geometrically real lanes; 1e6-scale masked
@@ -956,9 +929,8 @@ def ray_intersect_with_prior(flat: FlatScene, ray: Ray, active: jax.Array,
 def select_rows(table: jax.Array, idx: jax.Array,
                 max_unroll: int = 16) -> jax.Array:
     """``table[idx]`` for a small static first dimension, as a static
-    select chain: on TPU a wavefront-sized gather costs ~4ms per 2M lanes
-    even into a tiny table (scripts/bench_gather.py), while L compares +
-    selects are ~free on the VPU. Falls back to a real gather when the
+    select chain: L compares + selects fuse into the consumer, where a
+    wavefront-sized gather would be one more pass. Falls back to a real gather when the
     table is large. ``table``: (L, ...); ``idx``: (N,) int32."""
     L = table.shape[0]
     if L > max_unroll:

@@ -81,13 +81,13 @@ def configure_sensor(cam: PerspectiveCamera, to_world: jax.Array,
                      resolution) -> SensorState:
     width, height = int(resolution[0]), int(resolution[1])
     aspect = width / height
-    camera_to_sample = (
-        xform.scale(jnp.array([-0.5, -0.5 * aspect, 1.0]))
-        @ xform.translate(jnp.array([-1.0, -1.0 / aspect, 0.0]))
-        @ xform.perspective(cam.fov_x, cam.near_clip, cam.far_clip))
+    camera_to_sample = xform.matmul(
+        xform.matmul(xform.scale(jnp.array([-0.5, -0.5 * aspect, 1.0])),
+                     xform.translate(jnp.array([-1.0, -1.0 / aspect, 0.0]))),
+        xform.perspective(cam.fov_x, cam.near_clip, cam.far_clip))
     sample_to_camera = jnp.linalg.inv(camera_to_sample)
-    world_to_sample = camera_to_sample @ jnp.linalg.inv(to_world)
-    sample_to_world = to_world @ sample_to_camera
+    world_to_sample = xform.matmul(camera_to_sample, jnp.linalg.inv(to_world))
+    sample_to_world = xform.matmul(to_world, sample_to_camera)
 
     zero3 = jnp.zeros((3,), jnp.float32)
     camera_pos = xform.transform_pos(to_world, zero3)
@@ -192,7 +192,6 @@ def sample_primary_edge(state: SensorState, sample1: jax.Array) -> PrimaryEdgeSa
     width, height = state.resolution
     idx, pdf, s = discrete_sample_reuse(edges.distrb, sample1)
     # one packed row gather instead of 6 separate edge-table gathers
-    # (scripts/bench_gather.py gather cost model)
     packed = jnp.concatenate(
         [edges.p0, edges.p1, edges.edge_normal,
          edges.edge_length[:, None],

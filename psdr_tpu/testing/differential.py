@@ -34,14 +34,16 @@ def _per_mesh(params: dict, mesh_index, vecs, update) -> dict:
 def mesh_transform(params: dict, P, *, mesh_index=0,
                    direction=(1.0, 0.0, 0.0)) -> dict:
     return _per_mesh(params, mesh_index, direction,
-                     lambda m, d: xf.translate(d * P) @ m["to_world"])
+                     lambda m, d: xf.matmul(xf.translate(d * P),
+                                             m["to_world"]))
 
 
 def mesh_rotate(params: dict, P, *, mesh_index=0,
                 axis=(0.0, 1.0, 0.0)) -> dict:
     # axis direction carries the sign; xf.rotate normalizes magnitude
     return _per_mesh(params, mesh_index, axis,
-                     lambda m, a: xf.rotate(a, P) @ m["to_world"])
+                     lambda m, a: xf.matmul(xf.rotate(a, P),
+                                             m["to_world"]))
 
 
 def vertex_transform(params: dict, P, *, mesh_index: int = 0,
@@ -72,7 +74,8 @@ def envmap_rotate(params: dict, P, *, emitter_index: int = 0,
                   axis=(0.0, 1.0, 0.0)) -> dict:
     e = params["emitters"][emitter_index]
     new = dict(e)
-    new["to_world"] = xf.rotate(jnp.asarray(axis, jnp.float32), P) @ e["to_world"]
+    new["to_world"] = xf.matmul(
+        xf.rotate(jnp.asarray(axis, jnp.float32), P), e["to_world"])
     out = dict(params)
     out["emitters"] = list(params["emitters"])
     out["emitters"][emitter_index] = new

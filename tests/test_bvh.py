@@ -149,100 +149,53 @@ def test_scene_render_same_with_culled():
     np.testing.assert_allclose(img1, img2, rtol=1e-4, atol=1e-5)
 
 
-def test_pallas_kernel_matches_brute_interpret():
-    """Pallas intersection kernel (interpret mode) must exactly reproduce
-    the XLA brute-force backend."""
-    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
-
-    p0, e1, e2 = _random_soup(700, seed=7)
-    o, d = _random_rays(600, seed=8)
-    hb = ray_intersect_brute(jnp.asarray(p0), jnp.asarray(e1),
-                             jnp.asarray(e2), o, d)
-    hp = ray_intersect_pallas(jnp.asarray(p0), jnp.asarray(e1),
-                              jnp.asarray(e2), o, d, interpret=True)
-    np.testing.assert_array_equal(np.asarray(hb.valid), np.asarray(hp.valid))
-    same = np.asarray(hb.tri_id) == np.asarray(hp.tri_id)
-    tie = np.isclose(np.asarray(hb.t), np.asarray(hp.t), rtol=1e-5)
-    assert np.all(same | tie)
-
-
-def test_pallas_culled_matches_brute_interpret():
-    from psdr_tpu.accel.bvh import build_bvh_topology, refit_bvh
-    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas_culled
-
-    p0, e1, e2 = _random_soup(2048, seed=9)
-    o, d = _random_rays(600, seed=10)
-    topo = build_bvh_topology(p0, e1, e2, leaf_size=4)
+def _soup_bvh(n_tris, seed, leaf_size=4):
+    p0, e1, e2 = _random_soup(n_tris, seed=seed)
+    topo = build_bvh_topology(p0, e1, e2, leaf_size=leaf_size)
     bvh = refit_bvh(topo, jnp.asarray(p0), jnp.asarray(e1), jnp.asarray(e2))
-    hb = ray_intersect_brute(jnp.asarray(p0), jnp.asarray(e1),
-                             jnp.asarray(e2), o, d)
-    hp = ray_intersect_pallas_culled(bvh, o, d, interpret=True)
+    return (jnp.asarray(p0), jnp.asarray(e1), jnp.asarray(e2)), bvh
+
+
+def _assert_same_hits(hb, hp, lanes=None):
+    """Equal valid masks; equal triangle ids except exact distance ties."""
     np.testing.assert_array_equal(np.asarray(hb.valid), np.asarray(hp.valid))
     same = np.asarray(hb.tri_id) == np.asarray(hp.tri_id)
     tie = np.isclose(np.asarray(hb.t), np.asarray(hp.t), rtol=1e-5)
-    assert np.all(same | tie)
+    ok = same | tie
+    if lanes is not None:
+        ok = ok | ~lanes
+    assert np.all(ok)
 
 
 def test_pallas_culled2_matches_brute_interpret():
-    """v2 kernel (in-kernel cull + compaction + depth skip) must exactly
-    reproduce brute force, including tmax bounds and inactive lanes."""
-    from psdr_tpu.accel.bvh import build_bvh_topology, refit_bvh
-    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas_culled2
+    """The Triton-route kernel (interpret mode) must reproduce brute force,
+    including tmax bounds and inactive lanes, for every block shape; the
+    any-hit mode must agree on the hit/no-hit decision."""
+    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
 
-    p0, e1, e2 = _random_soup(2048, seed=9)
+    tris, bvh = _soup_bvh(2048, seed=9)
     o, d = _random_rays(600, seed=10)
     rng = np.random.default_rng(11)
     act = jnp.asarray(rng.uniform(size=600) > 0.1)
     tmax = jnp.asarray(np.where(rng.uniform(size=600) > 0.5, np.inf,
                                 rng.uniform(0.5, 6, 600)), jnp.float32)
-    topo = build_bvh_topology(p0, e1, e2, leaf_size=4)
-    bvh = refit_bvh(topo, jnp.asarray(p0), jnp.asarray(e1), jnp.asarray(e2))
-    hb = ray_intersect_brute(jnp.asarray(p0), jnp.asarray(e1),
-                             jnp.asarray(e2), o, d, act, tmax=tmax)
-    hp = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(hb.valid), np.asarray(hp.valid))
-    same = np.asarray(hb.tri_id) == np.asarray(hp.tri_id)
-    tie = np.isclose(np.asarray(hb.t), np.asarray(hp.t), rtol=1e-5)
-    assert np.all(same | tie)
-    # any-hit mode must agree on the hit/no-hit decision
-    ha = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                      any_hit=True, interpret=True)
+    hb = ray_intersect_brute(*tris, o, d, act, tmax=tmax)
+    hp = ray_intersect_pallas(bvh, o, d, act, tmax=tmax)
+    _assert_same_hits(hb, hp)
+    np.testing.assert_allclose(np.asarray(hp.t)[np.asarray(hp.valid)],
+                               np.asarray(hb.t)[np.asarray(hb.valid)],
+                               rtol=1e-5)
+    ha = ray_intersect_pallas(bvh, o, d, act, tmax=tmax, any_hit=True)
     np.testing.assert_array_equal(np.asarray(hb.valid), np.asarray(ha.valid))
-    # deeper DMA pipelining must not change any result
-    for n_slots in (3, 4):
-        h4 = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          n_slots=n_slots, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hp.tri_id),
-                                      np.asarray(h4.tri_id))
-        a4 = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          any_hit=True, n_slots=n_slots,
-                                          interpret=True)
+    # block shapes change the schedule, never the result
+    for ray_block, tri_block in ((16, 4), (32, 128), (128, 4096)):
+        hs = ray_intersect_pallas(bvh, o, d, act, tmax=tmax,
+                                  ray_block=ray_block, tri_block=tri_block)
+        _assert_same_hits(hb, hs)
+        hsa = ray_intersect_pallas(bvh, o, d, act, tmax=tmax, any_hit=True,
+                                   ray_block=ray_block, tri_block=tri_block)
         np.testing.assert_array_equal(np.asarray(hb.valid),
-                                      np.asarray(a4.valid))
-    # front-to-back bucketed streaming reorders blocks, never results
-    for g in (1, 2):
-        hf = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          front_to_back=True, sub_split=g,
-                                          interpret=True)
-        np.testing.assert_array_equal(np.asarray(hp.tri_id),
-                                      np.asarray(hf.tri_id))
-        af = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          any_hit=True, front_to_back=True,
-                                          sub_split=g, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.valid),
-                                      np.asarray(af.valid))
-    # sub-block lane refine only skips work, never changes results
-    for sub_split in (2, 4):
-        hs = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          sub_split=sub_split, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hp.tri_id),
-                                      np.asarray(hs.tri_id))
-        as_ = ray_intersect_pallas_culled2(bvh, o, d, act, tmax=tmax,
-                                          any_hit=True, sub_split=sub_split,
-                                          interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.valid),
-                                      np.asarray(as_.valid))
+                                      np.asarray(hsa.valid))
 
 
 def test_refit_quality_trigger_recovers_cull_efficiency():
@@ -275,35 +228,116 @@ def test_refit_quality_trigger_recovers_cull_efficiency():
     assert not sc.maybe_rebuild_accel(params, threshold=1.3)
 
 def test_pallas_culled2_inactive_blocks_skipped():
-    """Ray blocks with no active lane skip the in-kernel cull entirely
-    (count forced to 0); results for every lane — active, inactive, and in
-    fully-dead blocks — must still match brute force. Uses a small
-    ray_block so several whole blocks are inactive (the emitter-first
-    occlusion sweep's shape: ~1% active, sorted active-first)."""
-    from psdr_tpu.accel.bvh import build_bvh_topology, refit_bvh
-    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas_culled2
+    """Ray blocks with no active lane end their walk at the root; results
+    for every lane — active, inactive, and in fully-dead blocks — must
+    still match brute force (the emitter-first occlusion sweep's shape:
+    ~1% active, sorted active-first)."""
+    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
 
-    p0, e1, e2 = _random_soup(1024, seed=21)
+    tris, bvh = _soup_bvh(1024, seed=21)
     o, d = _random_rays(1024, seed=22)
-    topo = build_bvh_topology(p0, e1, e2, leaf_size=4)
-    bvh = refit_bvh(topo, jnp.asarray(p0), jnp.asarray(e1), jnp.asarray(e2))
     for act_np in (np.arange(1024) < 20,           # blocks 1..7 fully dead
                    np.zeros(1024, bool),           # every block dead
                    (np.arange(1024) // 128) == 3):  # one interior block live
         act = jnp.asarray(act_np)
-        hb = ray_intersect_brute(jnp.asarray(p0), jnp.asarray(e1),
-                                 jnp.asarray(e2), o, d, act)
-        hp = ray_intersect_pallas_culled2(bvh, o, d, act, ray_block=128,
-                                          interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.valid),
-                                      np.asarray(hp.valid))
-        same = np.asarray(hb.tri_id) == np.asarray(hp.tri_id)
-        tie = np.isclose(np.asarray(hb.t), np.asarray(hp.t), rtol=1e-5)
-        assert np.all(same | tie | ~act_np)
-        ha = ray_intersect_pallas_culled2(bvh, o, d, act, ray_block=128,
-                                          any_hit=True, interpret=True)
+        hb = ray_intersect_brute(*tris, o, d, act)
+        hp = ray_intersect_pallas(bvh, o, d, act, ray_block=128)
+        _assert_same_hits(hb, hp, lanes=act_np)
+        ha = ray_intersect_pallas(bvh, o, d, act, ray_block=128,
+                                  any_hit=True)
         np.testing.assert_array_equal(np.asarray(hb.valid),
                                       np.asarray(ha.valid))
+
+
+@pytest.mark.parametrize("n_rays", [1, 63, 65, 200])
+def test_pallas_pads_ray_counts(n_rays):
+    """Ray counts that are not a multiple of the ray block are padded with
+    inactive lanes and cut back: same hits as brute force, input length
+    out."""
+    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
+
+    tris, bvh = _soup_bvh(300, seed=41)
+    o, d = _random_rays(n_rays, seed=42)
+    hb = ray_intersect_brute(*tris, o, d)
+    hp = ray_intersect_pallas(bvh, o, d, ray_block=64)
+    assert hp.t.shape == (n_rays,) and hp.uv.shape == (n_rays, 2)
+    _assert_same_hits(hb, hp)
+
+
+@pytest.mark.parametrize("case", ["all_inactive", "tmax_zero"])
+def test_pallas_lanes_that_cannot_hit(case):
+    """All lanes inactive, or tmax = 0: nothing is hit, in both modes, and
+    the miss record is the contract's (id -1, t inf)."""
+    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
+
+    _, bvh = _soup_bvh(512, seed=43)
+    o, d = _random_rays(256, seed=44)
+    act = jnp.ones(256, bool)
+    tmax = None
+    if case == "all_inactive":
+        act = jnp.zeros(256, bool)
+    else:
+        tmax = jnp.zeros(256, jnp.float32)
+    for any_hit in (False, True):
+        h = ray_intersect_pallas(bvh, o, d, act, tmax=tmax, any_hit=any_hit)
+        assert not np.asarray(h.valid).any()
+        assert (np.asarray(h.tri_id) == -1).all()
+        assert np.isinf(np.asarray(h.t)).all()
+
+
+def test_pallas_block_tables_cut_the_bvh():
+    """The kernel's tables: 2B node rows ending at the block level, skip
+    links that stay inside them, and 16 SoA rows per block that hold every
+    triangle slot exactly once."""
+    from psdr_tpu.accel.pallas_kernel import block_tables
+
+    _, bvh = _soup_bvh(501, seed=45)
+    T, B, nodes, skip, tris = block_tables(bvh, 32)
+    assert T == 32 and B * T == bvh.num_leaves * bvh.leaf_size
+    assert nodes.shape == (2 * B, 8) and skip.shape == (2 * B,)
+    assert tris.shape == (16 * B, T)
+    assert int(np.asarray(skip).max()) < 2 * B
+    rows = np.asarray(tris).reshape(B, 16, T)
+    assert int(rows[:, 9].sum()) == 501                 # validity row
+    assert not rows[:, 10:].any()                       # zero padding
+    # a tri_block beyond the scene collapses to one block; below the leaf
+    # size it is raised to one leaf
+    assert block_tables(bvh, 1 << 20)[1] == 1
+    assert block_tables(bvh, 1)[0] == bvh.leaf_size
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_pallas_lowers_for_cuda(any_hit, monkeypatch):
+    """The kernel lowers through Pallas's Triton route for CUDA on a machine
+    without a GPU (catches primitives the route cannot express; the Triton
+    compile itself happens on the card)."""
+    import psdr_tpu.accel.pallas_kernel as pk
+
+    _, bvh = _soup_bvh(256, seed=46)
+    monkeypatch.setattr(pk.jax, "default_backend", lambda: "gpu")
+    f = jax.jit(lambda o, d, a, tm: pk.ray_intersect_pallas(
+        bvh, o, d, a, tm, any_hit=any_hit))
+    spec = [jax.ShapeDtypeStruct((300, 3), jnp.float32)] * 2 + [
+        jax.ShapeDtypeStruct((300,), bool),
+        jax.ShapeDtypeStruct((300,), jnp.float32)]
+    exp = jax.export.export(
+        f, platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(*spec)
+    assert "__gpu$xla.gpu.triton" in exp.mlir_module()
+
+
+@pytest.mark.gpu
+def test_pallas_compiled_matches_brute():
+    """On a GPU the kernel is compiled (never interpreted) and matches
+    brute force."""
+    from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas
+
+    tris, bvh = _soup_bvh(2048, seed=47)
+    o, d = _random_rays(4096, seed=48)
+    _assert_same_hits(ray_intersect_brute(*tris, o, d),
+                      ray_intersect_pallas(bvh, o, d))
+
 
 def test_ray_test_sparse_matches_brute():
     """ray_test(sparse=True) — the compacted occlusion sweep with its

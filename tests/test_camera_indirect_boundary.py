@@ -8,8 +8,8 @@ blocker has zero interior gradient (rigid translation of a flat quad), and
 the boundary gradient splits into two path classes: edge-between-panel-and-
 floor (covered by the s=1 indirect estimator) and edge-between-floor-and-
 light with the receiver hidden from the camera — which requires a length-2
-sensor subpath (PathTracer(camera_depth=2), BASELINE config 4's missing
-piece in round 1 / VERDICT item 4). Converged totals: fd = -0.0354 +-
+sensor subpath (PathTracer(camera_depth=2), BASELINE config 4).
+Converged totals: fd = -0.0354 +-
 0.0020 vs full AD -0.0369 +- 0.0025; s=1-only AD is +0.059 (wrong sign)."""
 import numpy as np
 import jax

@@ -497,3 +497,72 @@ def test_hier2d_warp_distribution_pdf_and_monotonicity():
                       jnp.asarray(np.sort(rng.random(3000)).astype(np.float32))],
                      -1), reso)
     assert np.all(np.diff(np.asarray(w4[:, 1])) >= -1e-6)
+
+
+@pytest.mark.parametrize("fn_name", ["transform_pos", "transform_dir"])
+def test_transform_matmuls_are_full_precision(fn_name):
+    """Geometry transforms must not run in TF32 on a GPU: every dot_general
+    in their jaxpr carries Precision.HIGHEST, and the results agree with
+    float64 numpy to float32 rounding."""
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    from psdr_tpu.core import transform as xf
+
+    fn = getattr(xf, fn_name)
+    rng = np.random.default_rng(5)
+    mat = np.asarray(xf.translate([0.3, -1.2, 2.0])
+                     @ xf.rotate([0.2, 1.0, -0.4], 37.0)
+                     @ xf.scale([1.5, 0.7, 2.2]), np.float32)
+    pts = rng.uniform(-3, 3, (64, 3)).astype(np.float32)
+    jaxpr = jax.make_jaxpr(fn)(jnp.asarray(mat), jnp.asarray(pts))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec), prec
+    got = np.asarray(fn(jnp.asarray(mat), jnp.asarray(pts)), np.float64)
+    m64, p64 = mat.astype(np.float64), pts.astype(np.float64)
+    if fn_name == "transform_pos":
+        ref = p64 @ m64[:3, :3].T + m64[:3, 3]
+        ref = ref / (p64 @ m64[3, :3] + m64[3, 3])[:, None]
+    else:
+        ref = p64 @ m64[:3, :3].T
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mesh_transform", "mesh_rotate",
+                                  "envmap_rotate"])
+def test_perturbation_matmuls_are_full_precision(kind):
+    """The AD-vs-FD perturbations compose a traced transform with
+    ``to_world``; that product must not run in TF32 on a GPU either: every
+    dot_general carries Precision.HIGHEST, and the result agrees with the
+    float64 product."""
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    from psdr_tpu.core import transform as xf
+    from psdr_tpu.testing.differential import PERTURBATIONS
+
+    to_world = np.asarray(xf.translate([0.3, -1.2, 2.0])
+                          @ xf.rotate([0.2, 1.0, -0.4], 37.0), np.float32)
+    params = {"meshes": [{"to_world": jnp.asarray(to_world)}],
+              "emitters": [{"to_world": jnp.asarray(to_world)}]}
+    group = "emitters" if kind == "envmap_rotate" else "meshes"
+
+    def moved(P):
+        return PERTURBATIONS[kind](params, P)[group][0]["to_world"]
+
+    jaxpr = jax.make_jaxpr(moved)(jnp.float32(0.7))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec), prec
+    step = (xf.translate(np.array([0.7, 0.0, 0.0])) if kind == "mesh_transform"
+            else xf.rotate(np.array([0.0, 1.0, 0.0]), 0.7))
+    ref = np.asarray(step, np.float64) @ to_world.astype(np.float64)
+    np.testing.assert_allclose(np.asarray(moved(jnp.float32(0.7))), ref,
+                               rtol=1e-6, atol=1e-6)

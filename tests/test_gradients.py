@@ -187,8 +187,8 @@ def test_known_hit_recompute_degenerate_lane_grads_finite():
     """A caller-provided hit (known-triangle camera trace) can mark a lane
     valid whose recompute ray is near-coplanar with the triangle; the
     solid-angle re-intersection must stay finite there so a 0-cotangent on
-    the masked lane can never poison the psum'd gradient (CLAUDE.md rule-8
-    class; found in the round-3 boundary-trace rewrite review)."""
+    the masked lane can never poison the psum'd gradient (0 * NaN is
+    NaN)."""
     import jax
     import jax.numpy as jnp
     import numpy as np

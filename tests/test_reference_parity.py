@@ -297,7 +297,7 @@ def test_bunny_env_estimator_cross_validation(scenes_dir):
 
 
 # ---------------------------------------------------------------------------
-# High-budget pinned cross-validation (VERDICT r4 weak #5): one scanned
+# High-budget pinned cross-validation: one scanned
 # program averages many seeds cheaply, tightening the 12% smoke tolerance
 # to 5% — the "matching images" bar at CPU-reachable budgets.
 # ---------------------------------------------------------------------------
